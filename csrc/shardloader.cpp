@@ -1,12 +1,12 @@
 // shardloader.cpp - native streaming loader for spectral shard files
 //
-// TPU-native equivalent of the reference's C++ data-loading layer
+// Equivalent of the reference's C++ data-loading layer
 // (src/include/DataFile.h + src/tools/DataFileEngineNetcdf.cpp): the
 // reference streams the ~700 GB CKDMIP database one profile at a time and
 // its wall clock is dominated by disk reads (doc/ecckd_documentation.tex:
 // 225-228).  This library provides the throughput-critical piece for the
 // new framework: asynchronous, multi-threaded, double-buffered reads of
-// flat binary spectral shards, overlapping host I/O with TPU compute.
+// flat binary spectral shards, overlapping host I/O with device compute.
 //
 // Exposed as a plain C ABI consumed from Python via ctypes
 // (ecckd_tpu/io/native.py).  Build: see csrc/Makefile.

@@ -12,10 +12,10 @@
 //
 // Per-sweep work is O(nwav * nlay) when the candidate intervals tile the
 // band, so throughput in wavenumber-bins*layers/s is directly comparable
-// with the TPU kernel's number in bench.py.
+// with the device kernel's number in bench.py.
 //
 // Numerics: float32 state with float64 broadband accumulators, matching
-// the TPU kernel's f32 compute / stable reductions.
+// the device kernel's f32 compute / stable reductions.
 
 #include <cmath>
 #include <cstdint>

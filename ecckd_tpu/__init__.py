@@ -1,4 +1,4 @@
-"""ecckd_tpu: a TPU-native correlated k-distribution (CKD) gas-optics generator.
+"""ecckd_tpu: a JAX correlated k-distribution (CKD) gas-optics generator.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of ecCKD
 (ecmwf-ifs/ecckd): generation of correlated k-distribution gas-optics models
@@ -12,9 +12,9 @@ from high-resolution line-by-line absorption spectra, comprising
   (``tools.optimize_lut``), and
 * CKD model evaluation (``tools.run_ckd``).
 
-The compute path is pure JAX (jit/vmap/grad + Pallas kernels), designed for
-TPU: the spectral (wavenumber) axis is the scaling dimension and is sharded
-across a device mesh; g-point reductions are segment-sums on the MXU; the
+The compute path is pure JAX (jit/vmap/grad + Pallas kernels) and runs on
+GPUs: the spectral (wavenumber) axis is the scaling dimension and is sharded
+across a device mesh; g-point reductions are segment-sum matmuls; the
 two-stream layer recurrences are short scans vectorized over the spectral
 axis; Adept reverse-mode autodiff is replaced by ``jax.value_and_grad`` of a
 pure cost function over a pytree of look-up tables.

@@ -1,4 +1,4 @@
-"""Evaluation metrics for CKD models (TPU-framework equivalent of the
+"""Evaluation metrics for CKD models (equivalent of the
 reference's Matlab ``plot/`` scripts — SURVEY.md §1 auxiliary row, §4
 "numerical evaluation as acceptance test")."""
 

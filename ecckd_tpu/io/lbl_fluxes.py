@@ -1,6 +1,6 @@
 """LblFluxes: container/reader of line-by-line training fluxes.
 
-TPU-native equivalent of src/ecckd/lbl_fluxes.{h,cpp}: reads CKDMIP-style
+Equivalent of src/ecckd/lbl_fluxes.{h,cpp}: reads CKDMIP-style
 LBL flux files, expands the three SW solar zenith angles into pseudo-columns
 (mu0 indices {0, 2, 4}, lbl_fluxes.cpp:82), computes heating rates on read,
 maps narrow to wide bands, maps high-resolution boundary fluxes to g-points,

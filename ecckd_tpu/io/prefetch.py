@@ -38,7 +38,7 @@ def prefetch_iter(iterable: Iterable, depth: int = 2) -> Iterator:
 
     def put_stoppable(item) -> bool:
         """Bounded put that gives up when the consumer abandoned iteration
-        (ADVICE r4: an unconditional blocking put would leave the daemon
+        (an unconditional blocking put would leave the daemon
         thread pinned forever holding up to ``depth`` spectral blocks)."""
         while not stop.is_set():
             try:

@@ -3,7 +3,7 @@
 The CKDMIP database is ~700 GB of HDF5 spectra and the reference's wall
 clock is dominated by reading it (doc/ecckd_documentation.tex:225-228).
 For the streaming compute path this module converts spectra into a flat
-binary layout optimized for the access pattern of the TPU pipeline —
+binary layout optimized for the access pattern of the device pipeline —
 contiguous *wavenumber blocks* of all layers — and iterates them with
 double-buffered asynchronous reads (native thread pool, io/native.py)
 overlapping host I/O with device compute.

@@ -1,6 +1,6 @@
 """CkdModel: the central CKD gas-optics model container.
 
-TPU-native re-design of ``CkdModel<IsActive>`` (src/ecckd/ckd_model.{h,cpp}).
+Re-design of ``CkdModel<IsActive>`` (src/ecckd/ckd_model.{h,cpp}).
 The Adept active/passive template duality disappears: this class is a plain
 host-side container of NumPy arrays with exact ckd-definition NetCDF schema
 parity (ckd_model.cpp:288-641), and the *optimizable state* is exposed as a
@@ -330,6 +330,7 @@ class CkdModel:
 
         Returns: (cost, gradient_tree).
         """
+        import jax
         import jax.numpy as jnp
         cost = 0.0
         grads = {}
@@ -341,7 +342,9 @@ class CkdModel:
             d2 = jnp.reshape(delta, (-1, ng))          # (nx, ng)
             shape_mat = jnp.asarray(g.inv_background_shape)
             inv_var = 1.0 / jnp.asarray(g.background_error) ** 2
-            grad = (shape_mat @ d2) * inv_var[None, :]
+            grad = jnp.matmul(shape_mat, d2,
+                              precision=jax.lax.Precision.HIGHEST
+                              ) * inv_var[None, :]
             cost = cost + 0.5 * jnp.sum(d2 * grad)
             grads[g.molecule] = jnp.reshape(grad, delta.shape)
         if (self.rayleigh_is_active

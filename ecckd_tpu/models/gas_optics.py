@@ -1,6 +1,6 @@
 """Pure-JAX gas optics: LUT interpolation to optical depth.
 
-TPU-native equivalent of ``CkdModel::calc_optical_depth``
+Equivalent of ``CkdModel::calc_optical_depth``
 (ckd_model.cpp:923-1102).  The reference's per-(column, level) scalar loops
 become vectorized gathers from the (tiny, replicated) look-up tables; the
 functions are pure in the LUT arrays so ``jax.grad`` differentiates through

@@ -2,15 +2,15 @@
 
 Two families, both expressed as parallel segment reductions:
 
-* Interval fits used during g-point search — TPU equivalents of
+* Interval fits used during g-point search — equivalents of
   ``fit_optical_depth_lw/sw/sw_total_trans`` (find_g_points.cpp:54-204).
   Operate on rank-contiguous intervals via prefix sums, batched over all
   candidate intervals at once.
 
-* G-point LUT averaging used by create_look_up_table — TPU equivalent of
+* G-point LUT averaging used by create_look_up_table — equivalent of
   ``average_optical_depth_to_g_point`` (average_optical_depth.cpp:21-197),
   with the OpenMP-over-g loop (P2) replaced by one-hot matmul segment
-  reductions on the MXU.
+  reductions as matmuls.
 
 Reference quirks reproduced deliberately (documented in SURVEY.md §7):
 * the 0.9999999999999999 transmission clamp (average_optical_depth.cpp:48);
@@ -266,10 +266,10 @@ def average_od_to_gpoints(ng, g_point, optical_depth, weight,
                           averaging_method, pressure_fl=None):
     """Average spectral od into g-points (nz, ng) by the requested method.
 
-    TPU equivalent of average_optical_depth_to_g_point
+    Equivalent of average_optical_depth_to_g_point
     (average_optical_depth.cpp:21-197) minus the molar-abs conversion (see
     :func:`od_to_molar_abs`).  The per-g OpenMP loop becomes one-hot matmul
-    segment reductions on the MXU; g-point membership may be arbitrary
+    segment reductions as matmuls; g-point membership may be arbitrary
     (non-contiguous in wavenumber space).
 
     Args:
@@ -289,9 +289,9 @@ def average_od_to_gpoints(ng, g_point, optical_depth, weight,
     w = jnp.broadcast_to(jnp.asarray(weight), od.shape)
     gp = jnp.asarray(g_point)
 
-    # Segment sums as chunked one-hot matmuls on the MXU: the one-hot
-    # membership block is materialized only per chunk (chunk x ng), so memory
-    # stays bounded for multi-million-point spectra.
+    # Segment sums as chunked one-hot matmuls: the one-hot membership block
+    # is materialized only per chunk (chunk x ng), so memory stays bounded
+    # for multi-million-point spectra.
     chunk = min(nwav, 65536)
     nchunk = -(-nwav // chunk)
     pad = nchunk * chunk - nwav
@@ -304,11 +304,8 @@ def average_od_to_gpoints(ng, g_point, optical_depth, weight,
         def body(carry, xs):
             v_c, gp_c = xs
             onehot = (gp_c[:, None] == g_range[None, :]).astype(od.dtype)
-            # _member_dot: exact-0/1 membership matmul in two bf16 MXU
-            # passes for f32-on-TPU (~2^-16 vs ~2^-8 for the plain dot,
-            # which truncates the DATA operand to bf16 — measured 4-7e-4
-            # on the averaging fits, PARITY_TPU r5); plain matmul (exact)
-            # on CPU/f64.
+            # _member_dot: exact-0/1 membership matmul at full precision
+            # (a TF32 dot would round the data operand to ~2^-11)
             return carry + _member_dot(v_c, onehot), None
 
         init = jnp.zeros((nz, ng), od.dtype)
@@ -422,7 +419,7 @@ def gpoint_block_partials(ng, g_point, od, weight, averaging_method):
     onehot = (gp[:, None] == jnp.arange(ng)[None, :]).astype(od.dtype)
 
     def seg(v):
-        # See seg_sum above: split-dot against the exact-0/1 membership
+        # See seg_sum above: full-precision dot against the 0/1 membership
         return _member_dot(v, onehot)
 
     out = {"w_sum": seg(w), "count": seg(jnp.ones_like(od))}

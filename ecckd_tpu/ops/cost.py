@@ -1,6 +1,6 @@
 """CKD cost functions for LUT optimization.
 
-TPU-native equivalents of ``calc_cost_function_ckd_lw``
+Equivalents of ``calc_cost_function_ckd_lw``
 (calc_cost_function_lw.cpp:115-232) and ``calc_cost_function_ckd_sw``
 (calc_cost_function_sw.cpp:115-277).  Pure functions of the optical depth:
 differentiate with ``jax.grad`` (replacing the Adept tape), vmap over
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import jax
 import jax.numpy as jnp
 
 from ..constants import HR_WEIGHT
@@ -31,8 +32,10 @@ class CostWeights(NamedTuple):
 
 
 def _band_sum(x, band_onehot):
-    """(..., ng) -> (..., nband) via one-hot matmul."""
-    return jnp.matmul(x, band_onehot, preferred_element_type=x.dtype)
+    """(..., ng) -> (..., nband) via one-hot matmul (full precision: a
+    TF32 dot would round the fluxes to ~2^-11)."""
+    return jnp.matmul(x, band_onehot, precision=jax.lax.Precision.HIGHEST,
+                      preferred_element_type=x.dtype)
 
 
 def _common_cost(pressure_hl, flux_dn_fwd_orig, flux_up_fwd_orig,

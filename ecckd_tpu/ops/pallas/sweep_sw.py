@@ -1,10 +1,11 @@
-"""Fused Pallas TPU kernel for the SW candidate-sweep broadband RT.
+"""Fused Pallas kernel (Triton route) for the SW candidate-sweep broadband RT.
 
-SW counterpart of sweep_lw: direct-beam Beer-Lambert downwelling at
+SW counterpart of :mod:`.sweep_lw`, with the same chunked work split and
+deterministic partial sums: direct-beam Beer-Lambert downwelling at
 sec(sza), optional no-Rayleigh upwelling at the fixed two-stream secant 2.0
-(Zdunkowski), tiled over wavenumber with the whole recurrence in VMEM and
-per-interval membership matmuls on the MXU.  Albedo is a per-wavenumber
-operand (scalar broadcast on entry): gas-level kernels span bands whose
+(Zdunkowski) run from the surface boundary as a second layer loop that
+recomputes each layer's optical depth.  Albedo is a per-wavenumber operand
+(scalar broadcast on entry): gas-level kernels span bands whose
 no-Rayleigh albedo differs (ref find_g_points.cpp:415-417 uses one scalar
 per band; per-wavenumber is the superset that evaluates identically within
 a band).
@@ -13,216 +14,120 @@ a band).
 from __future__ import annotations
 
 import functools
-import os as _os
 
 import jax
 import jax.numpy as jnp
 
 from ...constants import SW_DIFFUSE_SECANT
-
-# See sweep_lw.TILE. Measured on a v5e chip at nwav=2^21: 4096 =
-# 7.09 ms vs 2048 = 7.35 ms (+3.7%), so 4096 is the default.
-TILE = int(_os.environ.get("ECCKD_SWEEP_TILE", 4096))
-
-# Recurrence form (see sweep_lw.FORM): both SW sweeps are pure
-# transmittance products, so the "scan" form needs only multiplicative
-# prefix/suffix doubling — log2(nlay) shifted muls over the whole
-# (nlay, tile) block instead of nlay serial steps.
-FORM = _os.environ.get("ECCKD_SWEEP_FORM", "scan")
-
-from .sweep_lw import _split_dot  # two-pass bf16 split dot (0/1 operand)
+from .sweep_lw import (BLOCK, NUM_WARPS, _next_pow2, interval_chunks,
+                       num_programs, reduce_chunks)
 
 
-def _prod_scan(a, npad, reverse=False):
-    """Cumulative product along axis 0 by doubling: inclusive prefix
-    products (or suffix products with ``reverse=True``) of an (npad, tile)
-    block padded with ones rows."""
-    s = 1
-    while s < npad:
-        if reverse:
-            ash = jnp.concatenate([a[s:], jnp.ones_like(a[:s])], axis=0)
-        else:
-            ash = jnp.concatenate([jnp.ones_like(a[:s]), a[:-s]], axis=0)
-        a = a * ash
-        s *= 2
-    return a
-
-
-def _sweep_kernel(nlay: int, nseg: int, tile: int, cos_sza: float,
-                  with_up: bool, form: str,
-                  i1_ref, i2_ref, seg_ref, od_fit_ref, ssi_ref,
-                  bgod_ref, albedo_ref, fd_ref, fu_ref):
+def _sweep_kernel(nlay: int, nwav: int, nseg: int, block: int, width: int,
+                  cos_sza: float, with_up: bool,
+                  lo_ref, hi_ref, seg_ref, od_fit_ref, ssi_ref, bg_ref,
+                  albedo_ref, out_ref):
     from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
-    t = pl.program_id(0)
+    nlev1 = nlay + 1
+    p = pl.program_id(0)
+    lo = plgpu.load(lo_ref.at[p])
+    hi = plgpu.load(hi_ref.at[p])
+    idx = lo + jnp.arange(block, dtype=jnp.int32)
+    valid = idx < hi
+    dtype = out_ref.dtype
+    zero = jnp.zeros((block,), dtype)
+    seg = plgpu.load(seg_ref.at[idx], mask=valid, other=0)
+    col = jnp.arange(width, dtype=jnp.int32)
 
-    @pl.when(t == 0)
-    def _():
-        fd_ref[:, :] = jnp.zeros_like(fd_ref)
-        fu_ref[:, :] = jnp.zeros_like(fu_ref)
+    def put(res, c, v):
+        return jnp.where(col == c, jnp.sum(jnp.where(valid, v, zero)), res)
 
-    base = t * tile
-    seg = seg_ref[0, :]
-    col = jax.lax.broadcasted_iota(jnp.int32, (tile, nseg), 1)
-    part = (seg[:, None] == col).astype(od_fit_ref.dtype)
-    idx = jax.lax.broadcasted_iota(jnp.int32, (tile, nseg), 0) + base
-    member = ((idx >= i1_ref[0, :][None, :])
-              & (idx <= i2_ref[0, :][None, :])).astype(od_fit_ref.dtype)
+    def od_of(k):
+        return (plgpu.load(bg_ref.at[k * nwav + idx], mask=valid, other=0.0)
+                + plgpu.load(od_fit_ref.at[k * nseg + seg], mask=valid,
+                             other=0.0))
 
-    od_fit = od_fit_ref[:, :]
-    grey = _split_dot(od_fit, part.T)
-    od = bgod_ref[:, :] + grey
     minus_sec = -1.0 / cos_sza
+    flux = cos_sza * plgpu.load(ssi_ref.at[idx], mask=valid, other=0.0)
+    res = put(jnp.zeros((width,), dtype), 0, flux)
 
-    # Per-level flux rows of BOTH sweep directions stacked into one
-    # (2*(nlev+1), tile) matrix so the interval reduction is a single MXU
-    # matmul with M ~ 102 (per-level M=1 matmuls waste >100x of the
-    # systolic array; separate per-direction M=51 matmuls waste half).
-    trans_dn = jnp.exp(minus_sec * od)
-    flux = cos_sza * ssi_ref[0, :]
+    def down(k, carry):
+        flux, res = carry
+        flux = flux * jnp.exp(minus_sec * od_of(k))
+        return flux, put(res, k + 1, flux)
 
-    if form == "scan":
-        npad = 1 << max(nlay - 1, 0).bit_length()
-        ones_pad = jnp.ones((npad - nlay, tile), od.dtype)
-        # dn[lev] = flux0 * prod_{k < lev} trans_dn[k]: prefix product
-        pdn = _prod_scan(jnp.concatenate([trans_dn, ones_pad], 0), npad)
-        dn = jnp.concatenate([flux[None, :], flux[None, :] * pdn[:nlay]],
-                             axis=0)
-        if with_up:
-            trans_up = jnp.exp(-SW_DIFFUSE_SECANT * od)
-            # up[lay] = albedo*dn_surf * prod_{k >= lay} trans_up[k]:
-            # suffix product, scaled by the surface boundary
-            pup = _prod_scan(jnp.concatenate([trans_up, ones_pad], 0),
-                             npad, reverse=True)
-            boundary = albedo_ref[0, :] * dn[nlay]
-            up = jnp.concatenate(
-                [boundary[None, :] * pup[:nlay], boundary[None, :]], axis=0)
-            both = _split_dot(jnp.concatenate([dn, up], axis=0), member)
-            fd_ref[:, :] += both[: nlay + 1]
-            fu_ref[:, :] += both[nlay + 1:]
-        else:
-            fd_ref[:, :] += _split_dot(dn, member)
-        return
-
+    flux, res = jax.lax.fori_loop(0, nlay, down, (flux, res))
     if with_up:
-        # Both sweeps are pure transmittance products; running the upward
-        # product from 1 (scaled afterwards by the surface boundary
-        # albedo*dn_surf) makes the two chains INDEPENDENT — one mul each
-        # per step, interleaved by the unroll, instead of a dn-then-up
-        # serial pair (see sweep_lw for the same chain-latency argument).
-        trans_up = jnp.exp(-SW_DIFFUSE_SECANT * od)
-        a = jnp.ones((tile,), od.dtype)
-        dn_rows = [flux]
-        a_rows = [None] * (nlay + 1)
-        a_rows[nlay] = a
-        for k in range(nlay):
-            up_lay = nlay - 1 - k
-            flux = flux * trans_dn[k]
-            a = a * trans_up[up_lay]
-            dn_rows.append(flux)
-            a_rows[up_lay] = a
-        up = (albedo_ref[0, :] * flux)[None, :] * jnp.stack(a_rows)
-        both = _split_dot(jnp.concatenate([jnp.stack(dn_rows), up]), member)
-        fd_ref[:, :] += both[: nlay + 1]
-        fu_ref[:, :] += both[nlay + 1:]
-    else:
-        dn_rows = [flux]
-        for lay in range(nlay):
-            flux = flux * trans_dn[lay]
-            dn_rows.append(flux)
-        fd_ref[:, :] += _split_dot(jnp.stack(dn_rows), member)
+        up = plgpu.load(albedo_ref.at[idx], mask=valid, other=0.0) * flux
+        res = put(res, nlev1 + nlay, up)
+
+        def upward(i, carry):
+            up, res = carry
+            lay = nlay - 1 - i
+            up = up * jnp.exp(-SW_DIFFUSE_SECANT * od_of(lay))
+            return up, put(res, nlev1 + lay, up)
+
+        _, res = jax.lax.fori_loop(0, nlay, upward, (up, res))
+    plgpu.store(out_ref.at[p * width + col], res)
 
 
 def rt_sw_bb_intervals_pallas(ssi, bg_od, od_fit, seg_of_wav, i1, i2,
                               cos_sza: float, albedo,
                               with_upwelling: bool = True,
-                              interpret: bool = False, form=None):
+                              interpret: bool = False):
     """Per-interval broadband SW fluxes (see the jitted impl below).
     ``albedo`` is a scalar or (nwav,) vector; broadcast HERE (outside the
-    jit) so scalar and vector calls share one compiled kernel.  ``form``
-    (default: module FORM) is resolved HERE too, so the module default is
-    not baked into a ``form=None`` cache entry."""
+    jit) so scalar and vector calls share one compiled kernel."""
     albedo = jnp.broadcast_to(jnp.asarray(albedo, bg_od.dtype),
                               (bg_od.shape[-1],))
     return _rt_sw_bb_intervals_pallas(
         ssi, bg_od, od_fit, seg_of_wav, i1, i2, albedo, cos_sza=cos_sza,
-        with_upwelling=with_upwelling, interpret=interpret,
-        form=FORM if form is None else form)
-
-
-rt_sw_bb_intervals_pallas._clear_cache = (
-    lambda: _rt_sw_bb_intervals_pallas.clear_cache())
+        with_upwelling=with_upwelling, interpret=interpret)
 
 
 @functools.partial(jax.jit, static_argnames=("cos_sza", "with_upwelling",
-                                             "interpret", "form"))
+                                             "interpret"))
 def _rt_sw_bb_intervals_pallas(ssi, bg_od, od_fit, seg_of_wav, i1, i2,
                                albedo, cos_sza: float,
                                with_upwelling: bool = True,
-                               interpret: bool = False, form="scan"):
+                               interpret: bool = False):
     """Per-interval broadband SW fluxes, fused Pallas kernel.
 
     Args: ssi: (nwav,); bg_od: (nlay, nwav); od_fit: (nlay, nseg);
-    seg_of_wav: (nwav,); i1, i2: (nseg,); albedo: (nwav,); cos_sza static.
+    seg_of_wav: (nwav,); i1, i2: (nseg,) meeting
+    :func:`.sweep_lw.chunks_fit`; albedo: (nwav,); cos_sza static.
 
     Returns (flux_dn, flux_up), each (nlev+1, nseg); flux_up zeros without
     upwelling.
     """
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     nlay, nwav = bg_od.shape
     nlev1 = nlay + 1
     nseg = i1.shape[0]
     dtype = bg_od.dtype
-
-    tile = min(TILE, max(256, 1 << (nwav - 1).bit_length()))
-    ntile = -(-nwav // tile)
-    pad = ntile * tile - nwav
-    if pad:
-        ssi = jnp.pad(ssi, (0, pad))
-        bg_od = jnp.pad(bg_od, ((0, 0), (0, pad)))
-        albedo = jnp.pad(albedo, (0, pad))
-        seg_of_wav = jnp.pad(seg_of_wav, (0, pad), constant_values=-1)
-
-    if form is None:
-        # The public wrapper always resolves form OUTSIDE the jit; a None
-        # here would bake the import-time FORM into this cache entry.
-        raise ValueError("form must be resolved by the public wrapper")
-    kernel = functools.partial(_sweep_kernel, nlay, nseg, tile,
-                               float(cos_sza), bool(with_upwelling),
-                               str(form))
-    whole = lambda i: (0, 0)
-    fd, fu = pl.pallas_call(
+    if nlay * nwav >= 2 ** 31:
+        raise ValueError("sweep kernel indexes with int32: "
+                         f"{nlay} x {nwav} operands are too large")
+    width = _next_pow2(2 * nlev1)
+    nprog = num_programs(nwav, nseg)
+    lo, hi, pseg = interval_chunks(i1, i2, nwav, BLOCK, nprog)
+    kernel = functools.partial(_sweep_kernel, nlay, nwav, nseg, BLOCK,
+                               width, float(cos_sza), bool(with_upwelling))
+    partial = pl.pallas_call(
         kernel,
-        grid=(ntile,),
-        in_specs=[
-            pl.BlockSpec((1, nseg), whole, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, nseg), whole, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((nlay, nseg), whole, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((nlay, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((nlev1, nseg), whole, memory_space=pltpu.VMEM),
-            pl.BlockSpec((nlev1, nseg), whole, memory_space=pltpu.VMEM),
-        ],
-        out_shape=[jax.ShapeDtypeStruct((nlev1, nseg), dtype),
-                   jax.ShapeDtypeStruct((nlev1, nseg), dtype)],
+        out_shape=jax.ShapeDtypeStruct((nprog * width,), dtype),
+        grid=(nprog,),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(
-        jnp.asarray(i1, jnp.int32)[None, :],
-        jnp.asarray(i2, jnp.int32)[None, :],
-        jnp.asarray(seg_of_wav, jnp.int32)[None, :],
-        jnp.asarray(od_fit, dtype),
-        ssi[None, :].astype(dtype),
-        bg_od,
-        albedo[None, :].astype(dtype),
-    )
-    return fd, fu
+        name="ecckd_sweep_sw",
+    )(lo, hi, jnp.asarray(seg_of_wav, jnp.int32),
+      jnp.asarray(od_fit, dtype).reshape(-1), jnp.asarray(ssi, dtype),
+      bg_od.reshape(-1), albedo.astype(dtype))
+    sums = reduce_chunks(partial.reshape(nprog, width), pseg, nseg)
+    return sums[:, :nlev1].T, sums[:, nlev1:2 * nlev1].T

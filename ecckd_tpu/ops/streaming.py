@@ -3,7 +3,7 @@
 The multi-hundred-GB analogue of ops.average.average_od_to_gpoints: consume
 wavenumber blocks from a ShardReader (double-buffered native reads) and
 accumulate the per-g-point weighted sums on device, so host I/O overlaps
-TPU compute.  Every averaging reduction (all 8 methods of
+device compute.  Every averaging reduction (all 8 methods of
 average_optical_depth.cpp:120-197, including logarithmic zero-counting and
 the pressure-switched hybrid) is expressible as accumulated weighted sums
 over wavenumber blocks plus a final transform, and the per-block partial
@@ -22,9 +22,8 @@ import numpy as np
 from .average import (GPOINT_AVERAGING_METHODS, gpoint_block_partials,
                       finalize_gpoint_partials)
 
-# One compiled dispatch per block instead of ~10 eager ops: at ~50 ms
-# remote-TPU dispatch latency the eager form is latency-bound, not
-# bandwidth-bound.  ng and the method string are static; distinct block
+# One compiled dispatch per block instead of ~10 eager ops, so the
+# per-block cost is bandwidth, not dispatch latency.  ng and the method string are static; distinct block
 # shapes (the final partial block) compile separately and hit the cache
 # on subsequent profiles/gases.
 _block_partials_jit = jax.jit(gpoint_block_partials, static_argnums=(0, 4))

@@ -1,6 +1,6 @@
 """Training cost function for LUT optimization.
 
-TPU-native equivalent of calc_cost_function_and_gradient + the Adept tape
+Equivalent of calc_cost_function_and_gradient + the Adept tape
 (src/ecckd/solve_adept.cpp:23-203): one pure function of the log-LUT pytree,
 differentiated with ``jax.value_and_grad`` and jit-compiled.  Profiles within
 a scene are vmapped; for multi-chip runs the profile axis is sharded across
@@ -275,6 +275,7 @@ def make_cost_fn(model, scenes, weights, negative_od_penalty=1.0e4):
 def make_prior_fn(model):
     """Prior cost of the log-state delta tree (ref CkdOptimizable,
     solve_adept.cpp:262-283), differentiable in the tree."""
+    import jax
     import jax.numpy as jnp
 
     gases = [(g.molecule, jnp.asarray(g.inv_background_shape),
@@ -294,7 +295,9 @@ def make_prior_fn(model):
                 tree[mol] - jnp.asarray(prior_tree[mol]), 0.0)
             ng = delta.shape[-1]
             d2 = jnp.reshape(delta, (-1, ng))
-            grad = (shape_mat @ d2) * inv_var[None, :]
+            grad = jnp.matmul(shape_mat, d2,
+                              precision=jax.lax.Precision.HIGHEST
+                              ) * inv_var[None, :]
             cost = cost + 0.5 * jnp.sum(d2 * grad)
         if rayleigh_inv is not None and "rayleigh" in tree:
             delta = jnp.where(

@@ -1,7 +1,7 @@
 """Multi-host initialization helpers.
 
 The reference has no distributed backend (OpenMP only); the new framework
-scales across hosts with jax.distributed + a global mesh over ICI/DCN
+scales across hosts with jax.distributed + a global mesh over the device interconnect
 (SURVEY.md §5).  This module wraps the initialization boilerplate so tools
 can run unchanged under a multi-host launcher:
 
@@ -28,8 +28,8 @@ def initialize_from_env(coordinator_address: Optional[str] = None,
     """Initialize jax.distributed from args or standard env variables.
 
     Recognizes JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
-    (and falls back to jax.distributed.initialize() auto-detection on cloud
-    TPU pods).  Returns True when multi-process mode was initialized.
+    (and falls back to jax.distributed.initialize() auto-detection on
+    managed clusters).  Returns True when multi-process mode was initialized.
     """
     import jax
 

@@ -11,7 +11,7 @@ The framework's scaling axes (SURVEY.md §5):
   the LUT pytree is replicated and XLA inserts the gradient psum.
 
 The reference has no distributed backend (OpenMP only); these utilities are
-the TPU-native equivalent built on jax.sharding + ICI collectives.
+the equivalent built on jax.sharding + XLA collectives.
 """
 
 from __future__ import annotations
@@ -19,16 +19,6 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-
-
-def get_shard_map():
-    """The shard_map entry point across jax versions (moved out of
-    jax.experimental in newer releases)."""
-    try:
-        from jax import shard_map
-    except ImportError:   # older jax
-        from jax.experimental.shard_map import shard_map
-    return shard_map
 
 
 def make_mesh(n_devices: Optional[int] = None,

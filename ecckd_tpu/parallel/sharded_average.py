@@ -4,8 +4,8 @@ The multi-chip form of ops.average.average_od_to_gpoints (SURVEY.md §5
 "long-context" mapping): the wavenumber axis — the reference's analogue of
 sequence length, up to ~5.6M points — is sharded over the mesh's spectral
 axis; every device reduces its local shard into per-g-point weighted
-partial sums with one-hot MXU matmuls, and the partials are combined with
-``psum``/``pmin``/``pmax`` collectives over ICI.  The layer axis (~50) and
+partial sums with one-hot matmuls, and the partials are combined with
+``psum``/``pmin``/``pmax`` collectives.  The layer axis (~50) and
 the tiny (nz, ng) outputs stay replicated.  All 8 averaging methods of
 average_optical_depth.cpp:120-197 are supported — the per-shard partials
 are shared with the single-host streaming path (ops.streaming), which this
@@ -38,16 +38,15 @@ def _sharded_block_partials(mesh, ng: int, g_point, optical_depth, weight,
     """Mesh-reduced per-g-point partial sums of one wavenumber block.
 
     Shards the block's wavenumber axis over the mesh's ``axis``, reduces
-    each shard with one-hot MXU matmuls (ops.average.gpoint_block_partials)
-    and combines shard partials with psum/pmin/pmax over ICI.  Returns the
+    each shard with one-hot matmuls (ops.average.gpoint_block_partials)
+    and combines shard partials with psum/pmin/pmax.  Returns the
     replicated partials dict as host numpy arrays — the same quantities
     ops.streaming accumulates across blocks, so streaming and mesh
     sharding COMPOSE: stream blocks from disk, reduce each on the mesh,
     combine on host (see streaming_sharded_average_od_to_gpoints).
     """
     from jax.sharding import PartitionSpec as P
-    from .mesh import get_shard_map
-    shard_map = get_shard_map()
+    from jax import shard_map
 
     od = jnp.asarray(optical_depth)
     w = jnp.broadcast_to(jnp.asarray(weight), od.shape)
@@ -62,7 +61,7 @@ def _sharded_block_partials(mesh, ng: int, g_point, optical_depth, weight,
 
     def local(od_l, w_l, gp_l):
         parts = gpoint_block_partials(ng, gp_l, od_l, w_l, averaging_method)
-        # Combine shard partials over the spectral mesh axis (ICI):
+        # Combine shard partials over the spectral mesh axis:
         # extremum keys ride pmin/pmax, everything else psum.
         return {k: (jax.lax.pmin(v, axis) if k == "min"
                     else jax.lax.pmax(v, axis) if k == "max"
@@ -122,7 +121,7 @@ def streaming_sharded_average_od_to_gpoints(mesh, reader, ng: int, g_point,
     The host streams wavenumber blocks from disk (``reader.iter_blocks``,
     double-buffered when backed by the native loader); each block is
     sharded over the mesh's spectral axis and reduced to per-g-point
-    partials with psum/pmin/pmax over ICI; the tiny (nz, ng) partials
+    partials with psum/pmin/pmax; the tiny (nz, ng) partials
     accumulate on host across blocks exactly as in the single-device
     streaming path (ops.streaming), so all three reductions commute and
     any block size / shard count gives the same result.
@@ -171,8 +170,7 @@ def sharded_average_od_to_gpoints_multihost(mesh, ng: int, g_point_local,
             f"sharded averaging does not support {averaging_method!r}; "
             f"choose from {SUPPORTED_METHODS}")
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from .mesh import get_shard_map
-    shard_map = get_shard_map()
+    from jax import shard_map
 
     od_local = np.asarray(od_local)
     nz, nwav_local = od_local.shape
@@ -231,13 +229,12 @@ def streaming_sharded_average_od_to_gpoints_multihost(
     """
     from ..ops.streaming import _combine
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from .mesh import get_shard_map
-    shard_map = get_shard_map()
+    from jax import shard_map
 
     _check_method(averaging_method)
     nproc = jax.process_count()
     if nproc > 1 and mesh.shape[axis] != jax.device_count():
-        # Same guard as _CandidateCostBase._shard_arrays (ADVICE r4): with
+        # Same guard as _CandidateCostBase._shard_arrays: with
         # a data-parallel mesh the per-block padding below would mis-size
         # nloc_dev and the P(None, axis) process-local assembly misaligns.
         raise ValueError(

@@ -8,7 +8,7 @@ and secant bound searches for the target-error mode.
 The outer control loop is inherently sequential and cheap (dozens of
 iterations) and stays in host Python with float64 arithmetic; all interval
 cost evaluations of a sweep are delegated to :meth:`calc_error_many`, which a
-subclass implements as ONE batched jitted TPU kernel (replacing the OpenMP
+subclass implements as ONE batched jitted device kernel (replacing the OpenMP
 ``parallel for`` at equipartition.h:100-104).
 """
 

@@ -1,6 +1,6 @@
 """G-point bookkeeping for a single gas, gas overlap, and repartitioning.
 
-TPU-native equivalents of src/ecckd/single_gas_data.{h,cpp}: the
+Equivalents of src/ecckd/single_gas_data.{h,cpp}: the
 ``SingleGasData`` record used by find_g_points (distinct from the CkdModel
 gas record), the hypercube-partition gas overlap of Hogan (2010)
 (single_gas_data.cpp:23-124 — pure integer logic, ported faithfully), and

@@ -1,6 +1,6 @@
 """Pipeline orchestrator: the do_all_lw/do_all_sw workflow layer.
 
-TPU-native equivalent of the reference's L4 bash layer (test/do_all_lw.sh,
+Equivalent of the reference's L4 bash layer (test/do_all_lw.sh,
 test/do_all_sw.sh + step scripts): runs the CKD-generation step DAG
 
     [merge] -> reorder (per gas) -> find_g_points -> create_lut

@@ -1,6 +1,6 @@
 """CKDMIP workflow presets: band structures, applications, validation.
 
-TPU-native equivalent of the reference's L4 preset layer:
+Equivalent of the reference's L4 preset layer:
 
 - Band-structure wavenumber boundaries from ``test/config.h:138-168`` —
   the CKDMIP band definitions shared by every step script

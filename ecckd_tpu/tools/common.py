@@ -70,7 +70,7 @@ def read_string_list(cfg: Config, key: str) -> List[str]:
 
 class maybe_profile:
     """Context manager: write a jax.profiler trace when the ``profile_dir``
-    config key is set (TPU-equivalent of the reference's Timer-based
+    config key is set (equivalent of the reference's Timer-based
     activity profiling, SURVEY.md §5)."""
 
     def __init__(self, cfg: Optional[Config]):
@@ -89,10 +89,26 @@ class maybe_profile:
             jax.profiler.stop_trace()
 
 
+# Root of the checkout: the fallback compile cache lives beside the package
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def configure_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at one fixed directory:
+    ``$JAX_COMPILATION_CACHE_DIR`` when that is set, otherwise
+    ``<checkout>/.jax_cache``.  Returns the directory."""
+    import jax
+    path = (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or os.path.join(_CHECKOUT, ".jax_cache"))
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
+
+
 def setup_jax(cfg: Optional[Config] = None):
     """Configure JAX for a pipeline tool: float64 by default (matching the
     reference's double precision), overridable with precision=float32 for
-    TPU speed."""
+    device speed."""
     import jax
     precision = "float64"
     platform = None
@@ -103,8 +119,8 @@ def setup_jax(cfg: Optional[Config] = None):
         debug_nans = cfg.read_bool("debug_nans", default=False)
     if platform:
         jax.config.update("jax_platforms", platform)
-    if precision == "float64":
-        jax.config.update("jax_enable_x64", True)
+    jax.config.update("jax_enable_x64", precision == "float64")
+    configure_compile_cache()
     if debug_nans:
         # Parity with the reference's enable_floating_point_exceptions()
         # (floating_point_exceptions.h:20-25, used by optimize_lut/scale_lut)

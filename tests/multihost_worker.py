@@ -65,7 +65,7 @@ def main():
     np.testing.assert_allclose(mn, np.asarray(mn_ref), rtol=1e-12)
     np.testing.assert_allclose(mx, np.asarray(mx_ref), rtol=1e-12)
 
-    # ---- STREAMED multi-controller sharded averaging (VERDICT r3 item 2):
+    # ---- STREAMED multi-controller sharded averaging:
     # each process reads its local slice in blocks (ragged last block),
     # per-round global assembly + psum, partials combined across rounds
     from ecckd_tpu.parallel import (

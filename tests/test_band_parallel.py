@@ -1,6 +1,6 @@
 """Cross-band probe batching (band_parallel) vs the sequential band loop.
 
-VERDICT r4 item 3: bands are independent, so each equipartition iteration
+Bands are independent, so each equipartition iteration
 can batch its probes across all bands of a gas into one device dispatch.
 These tests assert (a) the gas-level kernel evaluates band probes
 identically to per-band kernels, (b) the threaded parallel mode produces

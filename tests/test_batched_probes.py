@@ -1,5 +1,4 @@
-"""Adversarial batched-probe tests for CkdEquipartition.calc_error_many
-(VERDICT r1 item 8).
+"""Adversarial batched-probe tests for CkdEquipartition.calc_error_many.
 
 Each kernel evaluation can carry only one interval's fitted od per
 wavenumber, so overlapping probe batches must be split into

@@ -200,15 +200,17 @@ class TestNcio:
             np.testing.assert_allclose(f.read("flux")[2], 2.0)
 
     def test_netcdf4_dimension_scales(self, tmp_path):
-        # The output must be a valid NetCDF-4 file: dimension scales attached
-        import h5py
+        # Name kept from the NetCDF-4 writer: the output is a NetCDF-3
+        # 64-bit-offset file whose variables name their dimensions
+        from scipy.io import netcdf_file
         path = str(tmp_path / "dims.nc")
         with NcWriter(path) as w:
             w.define_dimension("g_point", 4)
             w.define_variable("solar_irradiance", "float", "g_point")
             w.write(np.ones(4), "solar_irradiance")
-        with h5py.File(path) as f:
-            ds = f["solar_irradiance"]
-            assert len(ds.dims[0]) == 1  # scale attached
-            scale = f["g_point"]
-            assert scale.attrs["CLASS"] == b"DIMENSION_SCALE"
+        with open(path, "rb") as fh:
+            assert fh.read(4) == b"CDF\x02"
+        f = netcdf_file(path, "r", mmap=False)
+        assert f.dimensions["g_point"] == 4
+        assert f.variables["solar_irradiance"].dimensions == ("g_point",)
+        f.close()

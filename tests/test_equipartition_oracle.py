@@ -91,7 +91,7 @@ needs_reference = pytest.mark.skipif(
     or shutil.which("g++") is None,
     reason="reference source or g++ unavailable")
 
-# {npoints, ni, tolerance, ramp shape, cubic} sweep (VERDICT r1 item 6).
+# {npoints, ni, tolerance, ramp shape, cubic} sweep.
 CASES = [
     # npoints, ni, tol, shape, cubic
     (100000, 16, 0.01, 0, 0),     # round-1 case

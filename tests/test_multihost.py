@@ -1,4 +1,4 @@
-"""Two-process jax.distributed CPU test (VERDICT r1 item 5 / SURVEY §5).
+"""Two-process jax.distributed CPU test (SURVEY §5).
 
 Spawns tests/multihost_worker.py twice with coordinator env variables;
 each process owns 2 virtual CPU devices, forming a fake 2-host, 4-device

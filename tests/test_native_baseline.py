@@ -86,7 +86,7 @@ class TestSwCrossCheck:
     """Independent f64 C++ implementations of the SW candidate costs
     (csrc/crosscheck.cpp) vs the JAX kernels — the second-implementation
     oracle for math the compiled-reference oracles cannot reach (the
-    reference's SW cost TUs depend on Adept; VERDICT r4 missing #1)."""
+    reference's SW cost TUs depend on Adept)."""
 
     @pytest.mark.parametrize("seed", [0, 3])
     @pytest.mark.parametrize("albedo", [0.0, 0.15])

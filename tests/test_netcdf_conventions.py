@@ -1,27 +1,24 @@
-"""NetCDF-4 on-disk convention checks for every pipeline artifact
-(VERDICT r1 item 10).
+"""NetCDF on-disk convention checks for every pipeline artifact.
 
 The reference writes classic/NetCDF-4 via libnetcdf (OutputDataFile.h:
-47-193); this framework writes NetCDF-4/HDF5 via h5py.  No independent
-libnetcdf binding exists in this image (netCDF4/h5netcdf/xarray/ncdump
-all absent — see PARITY.md), so consumability is validated two ways:
+47-193); this framework writes NetCDF-3 64-bit-offset files through
+``scipy.io.netcdf_file``, the format every netCDF reader opens.  No
+independent libnetcdf binding exists in this image (netCDF4/h5netcdf/
+xarray/ncdump all absent — see PARITY.md), so consumability is validated
+two ways:
 
-1. Structural checks of the exact conventions netcdf-c requires to open
-   an HDF5 file as NetCDF-4: every dimension is a dimension-scale dataset
-   (CLASS=DIMENSION_SCALE), every variable's DIMENSION_LIST references
-   scales matching its shape, phantom dimensions carry the
-   "This is a netCDF dimension but not a netCDF variable" NAME sentinel,
-   and name-clashing non-coordinate variables use the _nc4_non_coord_
-   prefix.
+1. Structural checks of the NetCDF-3 64-bit-offset layout, read back with
+   scipy independently of the writer: the ``CDF\x02`` magic, every
+   variable's dimensions defined with lengths matching its shape, at most
+   one unlimited dimension and only as a leading axis, and the
+   ``history`` provenance attribute.
 2. If the real netCDF4 binding is importable (richer images), every
    artifact is read back through it outright.
 """
 
-import os
-
-import h5py
 import numpy as np
 import pytest
+from scipy.io import netcdf_file
 
 from ecckd_tpu.config import Config
 from ecckd_tpu.tools.reorder_spectrum import reorder_spectrum
@@ -36,16 +33,14 @@ try:
 except ImportError:
     HAVE_NETCDF4 = False
 
-DIM_SENTINEL = b"This is a netCDF dimension but not a netCDF variable"
-
 
 @pytest.fixture(scope="module")
 def artifacts(tmp_path_factory):
     d = tmp_path_factory.mktemp("ncconv")
-    h2o = synth_spectrum_file(str(d / "h2o.h5"), nwav=512, ncol=4)
-    order = str(d / "order.h5")
+    h2o = synth_spectrum_file(str(d / "h2o.nc"), nwav=512, ncol=4)
+    order = str(d / "order.nc")
     reorder_spectrum(Config({"input": h2o, "output": order}), argv=["r"])
-    gp = str(d / "gp.h5")
+    gp = str(d / "gp.nc")
     find_g_points(Config({
         "output": gp, "gases": "h2o", "heating_rate_tolerance": "0.4",
         "averaging_method": "transmission",
@@ -65,57 +60,31 @@ def artifacts(tmp_path_factory):
     return [order, gp, lut, out]
 
 
-def _is_scale(ds):
-    cls = ds.attrs.get("CLASS")
-    return cls is not None and bytes(cls) == b"DIMENSION_SCALE"
-
-
-def check_netcdf4_conventions(path):
-    with h5py.File(path, "r") as f:
-        scales = {}
-        for name, ds in f.items():
-            if isinstance(ds, h5py.Dataset) and _is_scale(ds):
-                scales[name] = ds
-        assert scales, f"{path}: no dimension scales at all"
-
-        for name, ds in f.items():
-            if not isinstance(ds, h5py.Dataset):
-                continue
-            if _is_scale(ds):
-                nm = ds.attrs.get("NAME")
-                assert nm is not None, f"{path}:{name}: scale without NAME"
-                nm = bytes(nm)
-                # Either a coordinate variable (NAME == its own name) or a
-                # phantom dimension carrying the netcdf-c sentinel
-                assert nm.rstrip(b"\x00") == name.encode() \
-                    or nm.startswith(DIM_SENTINEL), (path, name, nm)
-                continue
-            if ds.shape == ():      # attributes-only scalars: no dims
-                continue
-            # Every axis of a non-scale variable must reference a scale of
-            # matching length (DIMENSION_LIST is what netcdf-c walks)
-            assert "DIMENSION_LIST" in ds.attrs, \
-                f"{path}:{name}: missing DIMENSION_LIST"
-            for axis in range(ds.ndim):
-                attached = [f[ref] for ref in ds.attrs["DIMENSION_LIST"][axis]]
-                assert attached, f"{path}:{name}: axis {axis} unattached"
-                for sc in attached:
-                    assert _is_scale(sc)
-                    # Unlimited dims may be longer than the stub scale
-                    assert (sc.maxshape[0] is None
-                            or sc.shape[0] == ds.shape[axis]), \
-                        (path, name, axis, sc.shape, ds.shape)
-
-        # Name-clash convention: any _nc4_non_coord_ variable must clash
-        # with an existing dimension
-        for name in f:
-            if name.startswith("_nc4_non_coord_"):
-                assert name[len("_nc4_non_coord_"):] in scales, (path, name)
+def check_netcdf3_conventions(path):
+    with open(path, "rb") as fh:
+        assert fh.read(4) == b"CDF\x02", f"{path}: not 64-bit-offset CDF"
+    f = netcdf_file(path, "r", mmap=False)
+    try:
+        unlimited = [d for d, n in f.dimensions.items() if n is None]
+        assert len(unlimited) <= 1, (path, unlimited)
+        assert f.variables, f"{path}: no variables"
+        for name, var in f.variables.items():
+            for axis, dim in enumerate(var.dimensions):
+                assert dim in f.dimensions, (path, name, dim)
+                if f.dimensions[dim] is None:
+                    assert axis == 0, (path, name, "unlimited not leading")
+                else:
+                    assert var.data.shape[axis] == f.dimensions[dim], \
+                        (path, name, axis)
+        assert b"history" in [k.encode() for k in f._attributes], path
+    finally:
+        f.close()
 
 
 def test_all_artifacts_follow_netcdf4_conventions(artifacts):
+    # Name kept from the NetCDF-4 writer; the artifacts are NetCDF-3 now
     for path in artifacts:
-        check_netcdf4_conventions(path)
+        check_netcdf3_conventions(path)
 
 
 @pytest.mark.skipif(not HAVE_NETCDF4, reason="netCDF4 binding unavailable "

@@ -157,10 +157,10 @@ class TestOptimizeLut:
 
 
     def test_device_scipy_final_cost_parity(self, pipeline):
-        """VERDICT r1 item 4: the projected on-device L-BFGS must reach a
-        final cost comparable to scipy's bounded L-BFGS-B on a problem
-        with zero-k sentinels and active min/max bounds, so defaulting to
-        solver=device on TPU is trustworthy."""
+        """The projected on-device L-BFGS must reach a final cost
+        comparable to scipy's bounded L-BFGS-B on a problem with zero-k
+        sentinels and active min/max bounds, so either may be the
+        execution policy's solver=auto."""
         from ecckd_tpu.io.lbl_fluxes import LblFluxes
         from ecckd_tpu.optimize.solver import solve
         from ecckd_tpu.tools.optimize_lut import _prepare_lbl

@@ -1,4 +1,5 @@
-"""Pallas sweep kernel vs the XLA reference implementation (interpret mode)."""
+"""Pallas (Triton route) sweep kernels vs the XLA reference implementation,
+in interpret mode on the CPU."""
 
 import numpy as np
 import pytest
@@ -21,23 +22,22 @@ class TestPallasSweepLw:
         seg = np.repeat(np.arange(nseg, dtype=np.int32), np.diff(edges))
         return planck, bg_od, od_fit, emis, surfp, i1, i2, seg
 
-    @pytest.mark.parametrize("form", ["scan", "unroll"])
-    def test_matches_xla(self, form):
+    def test_matches_xla(self):
         planck, bg_od, od_fit, emis, surfp, i1, i2, seg = self._inputs()
         grey = od_fit[:, seg]
         fd_ref, fu_ref = rt_lw_bb_intervals(planck, bg_od, grey, emis,
                                             surfp, i1, i2)
         fd, fu = rt_lw_bb_intervals_pallas(planck, bg_od, od_fit, seg,
                                            emis, surfp, i1, i2,
-                                           interpret=True, form=form)
+                                           interpret=True)
         np.testing.assert_allclose(np.asarray(fd), np.asarray(fd_ref),
                                    rtol=2e-5)
         np.testing.assert_allclose(np.asarray(fu), np.asarray(fu_ref),
                                    rtol=2e-5)
 
-    @pytest.mark.parametrize("form", ["scan", "unroll"])
-    def test_non_tile_aligned(self, form):
-        # nwav not a multiple of the tile: padding must not contribute
+    def test_non_tile_aligned(self):
+        # nwav and intervals not multiples of the block: masked lanes must
+        # not contribute
         planck, bg_od, od_fit, emis, surfp, i1, i2, seg = self._inputs(
             nwav=1333, nseg=3, seed=4)
         grey = od_fit[:, seg]
@@ -45,14 +45,13 @@ class TestPallasSweepLw:
                                             surfp, i1, i2)
         fd, fu = rt_lw_bb_intervals_pallas(planck, bg_od, od_fit, seg,
                                            emis, surfp, i1, i2,
-                                           interpret=True, form=form)
+                                           interpret=True)
         np.testing.assert_allclose(np.asarray(fd), np.asarray(fd_ref),
                                    rtol=2e-5)
         np.testing.assert_allclose(np.asarray(fu), np.asarray(fu_ref),
                                    rtol=2e-5)
 
-    @pytest.mark.parametrize("form", ["scan", "unroll"])
-    def test_overlapping_boundary_index(self, form):
+    def test_overlapping_boundary_index(self):
         # Shared boundary index belongs to both intervals (ceil/floor map)
         planck, bg_od, od_fit, emis, surfp, i1, i2, seg = self._inputs(
             nwav=2048, nseg=4, seed=7)
@@ -63,7 +62,7 @@ class TestPallasSweepLw:
                                             surfp, i1, i2)
         fd, fu = rt_lw_bb_intervals_pallas(planck, bg_od, od_fit, seg,
                                            emis, surfp, i1, i2,
-                                           interpret=True, form=form)
+                                           interpret=True)
         np.testing.assert_allclose(np.asarray(fd), np.asarray(fd_ref),
                                    rtol=2e-5)
         np.testing.assert_allclose(np.asarray(fu), np.asarray(fu_ref),
@@ -82,8 +81,7 @@ class TestPallasSweepSw:
         seg = np.repeat(np.arange(nseg, dtype=np.int32), np.diff(edges))
         return ssi, bg_od, od_fit, i1, i2, seg
 
-    @pytest.mark.parametrize("form", ["scan", "unroll"])
-    def test_matches_xla_with_up(self, form):
+    def test_matches_xla_with_up(self):
         from ecckd_tpu.ops.rt_sw import rt_sw_bb_intervals
         from ecckd_tpu.ops.pallas.sweep_sw import rt_sw_bb_intervals_pallas
         ssi, bg_od, od_fit, i1, i2, seg = self._inputs()
@@ -93,14 +91,13 @@ class TestPallasSweepSw:
         fd, fu = rt_sw_bb_intervals_pallas(ssi, bg_od, od_fit, seg, i1, i2,
                                            cos_sza=0.5, albedo=0.15,
                                            with_upwelling=True,
-                                           interpret=True, form=form)
+                                           interpret=True)
         np.testing.assert_allclose(np.asarray(fd), np.asarray(fd_ref),
                                    rtol=2e-5)
         np.testing.assert_allclose(np.asarray(fu), np.asarray(fu_ref),
                                    rtol=2e-5)
 
-    @pytest.mark.parametrize("form", ["scan", "unroll"])
-    def test_matches_xla_direct_only(self, form):
+    def test_matches_xla_direct_only(self):
         from ecckd_tpu.ops.rt_sw import rt_sw_bb_intervals
         from ecckd_tpu.ops.pallas.sweep_sw import rt_sw_bb_intervals_pallas
         ssi, bg_od, od_fit, i1, i2, seg = self._inputs(seed=9, nwav=1024)
@@ -110,79 +107,15 @@ class TestPallasSweepSw:
         fd, fu = rt_sw_bb_intervals_pallas(ssi, bg_od, od_fit, seg, i1, i2,
                                            cos_sza=0.5, albedo=0.0,
                                            with_upwelling=False,
-                                           interpret=True, form=form)
+                                           interpret=True)
         np.testing.assert_allclose(np.asarray(fd), np.asarray(fd_ref),
                                    rtol=2e-5)
         np.testing.assert_allclose(np.asarray(fu), 0.0)
 
 
-class TestPallasIntervalSumFused:
-    """Fused Pallas interval sums vs the XLA form (interpret mode)."""
-
-    def _inputs(self, nlay=9, nwav=5000, nseg=6, seed=3):
-        rng = np.random.default_rng(seed)
-        a2 = rng.normal(1.0, 0.3, (nlay, nwav)).astype(np.float32)
-        b2 = np.abs(rng.normal(2.0, 0.5, (nlay, nwav))).astype(np.float32)
-        v1 = rng.normal(0.0, 1.0, nwav).astype(np.float32)
-        edges = np.linspace(0, nwav, nseg + 1).astype(np.int32)
-        i1, i2 = edges[:-1], edges[1:] - 1
-        return a2, b2, v1, i1, i2
-
-    def test_matches_xla(self):
-        from ecckd_tpu.ops.segments import interval_sum_fused, part_of
-        a2, b2, v1, i1, i2 = self._inputs()
-        parts = [part_of(a2, b2), part_of(b2), part_of(v1),
-                 part_of(v1, a2)]
-        ref = interval_sum_fused(parts, a2.shape[-1], i1, i2,
-                                 dtype=a2.dtype, use_pallas=False)
-        got = interval_sum_fused(parts, a2.shape[-1], i1, i2,
-                                 dtype=a2.dtype, use_pallas=True,
-                                 pallas_interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=3e-5, atol=1e-4)
-
-    def test_non_tile_aligned_overlapping(self):
-        # nwav not a tile multiple; intervals overlap at shared indices
-        from ecckd_tpu.ops.segments import interval_sum_fused, part_of
-        a2, b2, v1, _, _ = self._inputs(nwav=3333, seed=8)
-        i1 = np.array([0, 1000, 1000, 2500], np.int32)
-        i2 = np.array([1000, 2500, 3332, 3332], np.int32)
-        parts = [part_of(a2), part_of(v1, b2)]
-        ref = interval_sum_fused(parts, a2.shape[-1], i1, i2,
-                                 dtype=a2.dtype, use_pallas=False)
-        got = interval_sum_fused(parts, a2.shape[-1], i1, i2,
-                                 dtype=a2.dtype, use_pallas=True,
-                                 pallas_interpret=True)
-        # bf16-split truncation (~2^-17/term) accumulates over the
-        # interval; tolerance is relative to the summand scale, not the
-        # (possibly cancelled) sums
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=2e-4, atol=5e-3)
-
-    def test_custom_part_falls_back(self):
-        # A part without bound arrays (custom callable) must fall back to
-        # the XLA path even when use_pallas is requested.
-        import jax
-        from ecckd_tpu.ops.segments import interval_sum_fused, part_of
-        a2, _, _, i1, i2 = self._inputs(nwav=2000, seed=5)
-
-        def custom(start, size):
-            sl = jax.lax.dynamic_slice_in_dim(a2, start, size, axis=1)
-            return np.float32(2.0) * sl
-
-        ref = interval_sum_fused([part_of(a2), custom], a2.shape[-1],
-                                 i1, i2, dtype=a2.dtype, use_pallas=False)
-        got = interval_sum_fused([part_of(a2), custom], a2.shape[-1],
-                                 i1, i2, dtype=a2.dtype, use_pallas=True,
-                                 pallas_interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=1e-6)
-
-
 class TestScanFormProductionShape:
-    """Scan-form padding path at the production layer count: nlay=50 pads
-    to npad=64 identity maps (the shapes every TPU measurement uses;
-    smaller tests above exercise npad=16)."""
+    """The production layer count (nlay=50: 100 register-held terms per
+    lane in the upward pass) against the XLA form."""
 
     def test_lw_scan_nlay50(self):
         rng = np.random.default_rng(11)
@@ -195,18 +128,17 @@ class TestScanFormProductionShape:
         edges = np.linspace(0, nwav, nseg + 1).astype(np.int32)
         i1, i2 = edges[:-1], edges[1:] - 1
         seg = np.repeat(np.arange(nseg, dtype=np.int32), np.diff(edges))
-        fd_s, fu_s = rt_lw_bb_intervals_pallas(
-            planck, bg, od_fit, seg, emis, surfp, i1, i2,
-            interpret=True, form="scan")
-        fd_u, fu_u = rt_lw_bb_intervals_pallas(
-            planck, bg, od_fit, seg, emis, surfp, i1, i2,
-            interpret=True, form="unroll")
-        np.testing.assert_allclose(np.asarray(fd_s), np.asarray(fd_u),
+        fd_k, fu_k = rt_lw_bb_intervals_pallas(
+            planck, bg, od_fit, seg, emis, surfp, i1, i2, interpret=True)
+        fd_x, fu_x = rt_lw_bb_intervals(planck, bg, od_fit[:, seg], emis,
+                                        surfp, i1, i2)
+        np.testing.assert_allclose(np.asarray(fd_k), np.asarray(fd_x),
                                    rtol=3e-5)
-        np.testing.assert_allclose(np.asarray(fu_s), np.asarray(fu_u),
+        np.testing.assert_allclose(np.asarray(fu_k), np.asarray(fu_x),
                                    rtol=3e-5)
 
     def test_sw_scan_nlay50(self):
+        from ecckd_tpu.ops.rt_sw import rt_sw_bb_intervals
         from ecckd_tpu.ops.pallas.sweep_sw import rt_sw_bb_intervals_pallas
         rng = np.random.default_rng(12)
         nlay, nwav, nseg = 50, 2600, 3
@@ -216,53 +148,70 @@ class TestScanFormProductionShape:
         edges = np.linspace(0, nwav, nseg + 1).astype(np.int32)
         i1, i2 = edges[:-1], edges[1:] - 1
         seg = np.repeat(np.arange(nseg, dtype=np.int32), np.diff(edges))
-        out_s = rt_sw_bb_intervals_pallas(ssi, bg, od_fit, seg, i1, i2,
+        out_k = rt_sw_bb_intervals_pallas(ssi, bg, od_fit, seg, i1, i2,
                                           cos_sza=0.5, albedo=0.2,
-                                          interpret=True, form="scan")
-        out_u = rt_sw_bb_intervals_pallas(ssi, bg, od_fit, seg, i1, i2,
-                                          cos_sza=0.5, albedo=0.2,
-                                          interpret=True, form="unroll")
-        for a, b in zip(out_s, out_u):
+                                          interpret=True)
+        out_x = rt_sw_bb_intervals(0.5, ssi, bg, od_fit[:, seg], 0.2,
+                                   i1, i2)
+        for a, b in zip(out_k, out_x):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                        rtol=3e-5)
 
 
-class TestIsumTileAndDedup:
-    def test_pallas_tile_param_honored(self):
-        """ADVICE r3: tile= applied only to the XLA path; the explicit
-        pallas_tile now threads through — different tiles must agree (and
-        exercise distinct padding) in interpret mode."""
-        from ecckd_tpu.ops.segments import interval_sum_fused, part_of
-        rng = np.random.default_rng(3)
-        nlay, nwav = 5, 1000
-        a2 = np.abs(rng.normal(1.0, 0.3, (nlay, nwav))).astype(np.float32)
-        v1 = rng.normal(0.0, 1.0, nwav).astype(np.float32)
-        i1 = np.array([0, 300, 700], np.int32)
-        i2 = np.array([299, 699, 999], np.int32)
-        parts = [part_of(a2, v1), part_of(v1)]
-        outs = [np.asarray(interval_sum_fused(
-            parts, nwav, i1, i2, dtype=a2.dtype, use_pallas=True,
-            pallas_interpret=True, pallas_tile=tile)) for tile in (128, 512)]
-        np.testing.assert_allclose(outs[0], outs[1], rtol=2e-4, atol=1e-4)
+class TestChunkTable:
+    """The kernels' work split: chunks of one interval each."""
 
-    def test_duplicate_operand_dedup_exact(self):
-        """An array appearing in several parts (staged once after dedup)
-        must reduce identically to the XLA form."""
-        from ecckd_tpu.ops.segments import (_pallas_groups,
-                                            interval_sum_fused, part_of)
-        rng = np.random.default_rng(4)
-        nlay, nwav = 4, 512
-        w = np.abs(rng.normal(1.0, 0.2, (nlay, nwav))).astype(np.float32)
-        m = np.abs(rng.normal(0.5, 0.1, (nlay, nwav))).astype(np.float32)
-        parts = [part_of(m, w), part_of(w), part_of(w, w)]
-        meta, unique = _pallas_groups(parts, nwav)
-        assert len(unique) == 2            # w staged once
-        assert meta == (((0, 1), nlay), ((1,), nlay), ((1, 1), nlay))
-        i1 = np.array([0, 256], np.int32)
-        i2 = np.array([255, 511], np.int32)
-        ref = interval_sum_fused(parts, nwav, i1, i2, dtype=w.dtype,
-                                 use_pallas=False)
-        got = interval_sum_fused(parts, nwav, i1, i2, dtype=w.dtype,
-                                 use_pallas=True, pallas_interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=3e-5, atol=1e-4)
+    def test_chunks_cover_each_interval_once(self):
+        from ecckd_tpu.ops.pallas.sweep_lw import (interval_chunks,
+                                                   num_programs)
+        i1 = np.array([0, 0, 0, 130, 400], np.int32)
+        i2 = np.array([0, 0, 129, 399, 999], np.int32)
+        nprog = num_programs(1000, 5, block=128)
+        lo, hi, seg = map(np.asarray,
+                          interval_chunks(i1, i2, 1000, 128, nprog))
+        for s in range(5):
+            ranks = np.concatenate([np.arange(a, b) for a, b, g
+                                    in zip(lo, hi, seg) if g == s])
+            np.testing.assert_array_equal(np.sort(ranks),
+                                          np.arange(i1[s], i2[s] + 1))
+            assert np.all(hi[seg == s] - lo[seg == s] <= 128)
+        assert np.all(hi[seg < 0] == lo[seg < 0])
+
+    def test_chunks_clip_shard_local_bounds(self):
+        # Mesh shards pass bounds shifted into local rank space
+        from ecckd_tpu.ops.pallas.sweep_lw import interval_chunks
+        lo, hi, seg = map(np.asarray, interval_chunks(
+            np.array([-50, 60], np.int32), np.array([59, 300], np.int32),
+            100, 64, 8))
+        spans = sorted((int(a), int(b), int(g))
+                       for a, b, g in zip(lo, hi, seg) if g >= 0)
+        assert spans == [(0, 60, 0), (60, 100, 1)]
+
+    @pytest.mark.parametrize("i1,i2,fits", [
+        ([0, 500, 1000], [499, 999, 1999], True),      # disjoint
+        ([0, 500, 1000], [500, 1000, 1999], True),     # shared boundaries
+        ([0, 0, 0, 10], [0, 0, 0, 99], True),          # bucket front pad
+        ([0, 0, 0], [999, 999, 999], False),           # nested copies
+    ])
+    def test_chunks_fit(self, i1, i2, fits):
+        from ecckd_tpu.ops.pallas.sweep_lw import chunks_fit
+        assert chunks_fit(np.array(i1), np.array(i2), 2000) is fits
+
+    def test_overlapping_costs_rejected(self):
+        from ecckd_tpu.partition.cost_kernel import CandidateCostLw
+        rng = np.random.default_rng(5)
+        nlay, nwav = 4, 256
+        f32 = lambda a: np.asarray(a, np.float32)
+        p = np.exp(np.linspace(np.log(100.0), np.log(1e5), nlay + 1))
+        planck = np.abs(rng.normal(5, 1, (nlay + 1, nwav)))
+        kern = CandidateCostLw(
+            "transmission", 0.02, f32(np.full(nlay, 0.25)), f32(p),
+            f32(np.ones(nwav)), f32(planck[-1]), f32(planck[-1] * 0.5),
+            f32(planck[0] * 0.8), f32(planck),
+            f32(rng.gamma(0.5, 0.1, (nlay, nwav))),
+            f32(rng.uniform(0.1, 0.9, (nlay, nwav))),
+            f32(np.zeros((nlay, nwav))), use_pallas=True,
+            pallas_interpret=True)
+        with pytest.raises(ValueError, match="overlap"):
+            kern.costs(np.array([0, 0], np.int32),
+                       np.array([255, 255], np.int32))

@@ -1,4 +1,4 @@
-"""Thread-ahead prefetching must be transparent (VERDICT r3 item 8)."""
+"""Thread-ahead prefetching must be transparent."""
 
 import time
 

@@ -1,6 +1,6 @@
 """Double-float prefix-sum fast path for repeated interval reductions.
 
-The r5 production sweep path (VERDICT r4 item 1): the fit/truth interval
+The r5 production sweep path: the fit/truth interval
 sums of the candidate-cost kernels are precomputed ONCE per band as
 double-float prefix sums and each sweep gathers interval differences,
 eliminating the per-sweep spectral reduction pass entirely.  These tests
@@ -37,8 +37,7 @@ class TestPrefixIntervalSums:
         a2, b2, v1, i1, i2 = _inputs()
         parts = [part_of(a2, b2), part_of(b2), part_of(v1)]
         ref = np.asarray(interval_sum_fused(parts, a2.shape[-1], i1, i2,
-                                            dtype=a2.dtype,
-                                            use_pallas=False))
+                                            dtype=a2.dtype))
         hi, lo = build_prefix_sums(parts, a2.shape[-1])
         got = np.asarray(interval_sum_from_prefix(hi, lo, i1, i2))
         np.testing.assert_allclose(got, ref, rtol=1e-12)
@@ -49,8 +48,7 @@ class TestPrefixIntervalSums:
         i2 = np.array([500, 1999, 1200, 1999], np.int32)
         parts = [part_of(a2), part_of(v1)]
         ref = np.asarray(interval_sum_fused(parts, 2000, i1, i2,
-                                            dtype=a2.dtype,
-                                            use_pallas=False))
+                                            dtype=a2.dtype))
         hi, lo = build_prefix_sums(parts, 2000)
         got = np.asarray(interval_sum_from_prefix(hi, lo, i1, i2))
         np.testing.assert_allclose(got, ref, rtol=1e-12)
@@ -61,8 +59,7 @@ class TestPrefixIntervalSums:
         a2, b2, v1, i1, i2 = _inputs(nlay=9, nwav=777, seed=5)
         parts = [part_of(a2, b2), part_of(b2), part_of(v1, a2)]
         ref = np.asarray(interval_sum_fused(parts, 777, i1, i2,
-                                            dtype=a2.dtype,
-                                            use_pallas=False))
+                                            dtype=a2.dtype))
         hi, lo = build_prefix_sums(parts, 777, row_chunk=4)
         assert hi.shape == (27, 778)   # 9 + 9 + 9 (v1 broadcasts over a2)
         got = np.asarray(interval_sum_from_prefix(hi, lo, i1, i2))
@@ -107,8 +104,7 @@ class TestPrefixIntervalSums:
 
         parts = [custom, part_of(a2)]
         ref = np.asarray(interval_sum_fused(parts, 1500, i1, i2,
-                                            dtype=a2.dtype,
-                                            use_pallas=False))
+                                            dtype=a2.dtype))
         hi, lo = build_prefix_sums(parts, 1500)
         got = np.asarray(interval_sum_from_prefix(hi, lo, i1, i2))
         np.testing.assert_allclose(got, ref, rtol=1e-12)
@@ -148,7 +144,7 @@ def test_sw_prefix_equals_plain(method):
 
 
 def test_lw_prefix_with_pallas_interpret():
-    """The production TPU combination: prefix fit/truth gathers + the
+    """The production GPU combination: prefix fit/truth gathers + the
     fused Pallas sweep kernel (interpret mode on CPU)."""
     args, _ = lw_args("transmission", 300)
     plain = CandidateCostLw(*args, use_pallas=False, use_prefix=False)
@@ -200,18 +196,19 @@ def test_chained_bench_fn_matches_costs():
         np.testing.assert_allclose(float(got), expect, rtol=1e-6)
 
 
-def test_min_bucket_floor(monkeypatch):
-    """ECCKD_MIN_BUCKET pads every probe batch to one shared bucket (one
-    compile per kernel on the relay) without changing costs."""
+def test_pad_to_bucket_powers_of_two():
+    """Probe batches pad to power-of-two buckets, so a band's hundreds of
+    probes compile at most log2(batch) sweep kernels, and padded columns
+    do not change the real ones' costs."""
     from ecckd_tpu.partition import cost_kernel as ck
+    assert [ck._pad_to_bucket(n) for n in (0, 1, 2, 3, 5, 64, 65)] == \
+        [1, 1, 2, 4, 8, 64, 128]
     args, _ = lw_args("transmission", 256, seed=8)
     kern = CandidateCostLw(*args, use_pallas=False)
     eq = CkdEquipartition(kern)
     i1, i2 = probe_batches(kern.npoints)[0]
     seg = eq._seg_of_wav(i1)
     base = kern.costs(i1, i2, seg)
-    monkeypatch.setattr(ck, "_MIN_BUCKET", 64)
-    kern2 = CandidateCostLw(*args, use_pallas=False)
-    assert ck._pad_to_bucket(len(i1)) == 64
-    np.testing.assert_allclose(kern2.costs(i1, i2, seg), base, rtol=1e-13)
-    assert len(kern2._jitted) == 1
+    one = [kern.costs(i1[k:k + 1], i2[k:k + 1], seg)[0]
+           for k in range(len(i1))]
+    np.testing.assert_allclose(one, base, rtol=1e-13)

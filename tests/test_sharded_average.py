@@ -50,7 +50,7 @@ def streaming_result(od, weight, g_point, ng, method, block_wav=256):
 
 
 class TestAllPathsAgree:
-    """VERDICT r1 item 2 / r3 item 2: in-memory, streaming, sharded, and
+    """In-memory, streaming, sharded, and
     streamed+sharded (composed) paths must agree for all 8 methods."""
 
     @pytest.mark.parametrize("method", ALL_METHODS)
@@ -68,7 +68,7 @@ class TestAllPathsAgree:
             pressure_fl=PRESSURE_FL)
 
         # Composed: stream blocks, psum-reduce each over the mesh
-        # (the 700 GB multi-chip execution of VERDICT r3 item 2)
+        # (the 700 GB multi-chip execution)
         class FakeReader:
             def iter_blocks(self, block_wav):
                 for i0 in range(0, od.shape[1], block_wav):

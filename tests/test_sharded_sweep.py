@@ -1,4 +1,4 @@
-"""Mesh-sharded candidate sweep == single-device sweep (VERDICT r3 item 1).
+"""Mesh-sharded candidate sweep == single-device sweep.
 
 The candidate-cost kernels shard the band's wavenumber axis over the mesh's
 spectral axis (partition.cost_kernel): each shard reduces its local interval
